@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from igcn_cf_tpu.analysis.plots import REFERENCE_TEMPLATE_SWEEP
-from igcn_cf_tpu.analysis.theoretical_error import (
+from igcn_cf.analysis.plots import REFERENCE_TEMPLATE_SWEEP
+from igcn_cf.analysis.theoretical_error import (
     error_curve,
     svd_factors,
     theoretical_error_analysis,

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from igcn_cf_tpu.data.dataset import Interactions, get_dataset
-from igcn_cf_tpu.data.loaders import split_interactions
-from igcn_cf_tpu.data.sampler import DeviceNegativeSampler, sample_bpr_epoch
-from igcn_cf_tpu.data.synthetic import synthetic_interactions
-from igcn_cf_tpu.data.transforms import auxiliary_interactions, dropit, dropui
+from igcn_cf.data.dataset import Interactions, get_dataset
+from igcn_cf.data.loaders import split_interactions
+from igcn_cf.data.sampler import DeviceNegativeSampler, sample_bpr_epoch
+from igcn_cf.data.synthetic import synthetic_interactions
+from igcn_cf.data.transforms import auxiliary_interactions, dropit, dropui
 
 import jax
 

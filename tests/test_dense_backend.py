@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from igcn_cf_tpu.kernels.bitpack import (
+from igcn_cf.kernels.bitpack import (
     TK,
     TM,
     bb_matmul,
@@ -19,14 +19,14 @@ from igcn_cf_tpu.kernels.bitpack import (
     unpack_bits_np,
     _seed_from_key,
 )
-from igcn_cf_tpu.kernels.dense_graph import (
+from igcn_cf.kernels.dense_graph import (
     BipartiteDense,
     feat_aggregate,
     ngcf_propagate,
     sym_norm_propagate_mean,
 )
-from igcn_cf_tpu.models.base import get_model
-from igcn_cf_tpu.train.trainer import get_trainer
+from igcn_cf.models.base import get_model
+from igcn_cf.train.trainer import get_trainer
 
 
 def _rep(model_cfg, ds, backend, key=0):
@@ -154,7 +154,7 @@ def test_bb_matmul_dropped_fwd_bwd_consistent(rng):
 def test_bbt_pair_matches_dense(rng):
     """Transposed-layout pair (round 5): y1t = (B @ x1t^T)^T, y2t =
     (B^T @ x2t^T)^T, plus the swapped-direction VJP."""
-    from igcn_cf_tpu.kernels.bitpack import bbt_pair
+    from igcn_cf.kernels.bitpack import bbt_pair
 
     d = 8
     b = (rng.random((TM, TK)) < 0.15).astype(np.float32)
@@ -184,8 +184,8 @@ def test_bbt_pair_matches_dense(rng):
 
 def test_bbt_pair_dropped_masks_and_vjp(rng):
     """Each direction drops with ITS key; the backward's swapped directions
-    carry their original masks (kernels/bitpack.py round-5 docstring)."""
-    from igcn_cf_tpu.kernels.bitpack import bbt_pair_dropped
+    carry their original masks (kernels/bitpack.py docstring)."""
+    from igcn_cf.kernels.bitpack import bbt_pair_dropped
 
     d, p = 8, 0.3
     b = (rng.random((TM, TK)) < 0.2).astype(np.float32)
@@ -220,7 +220,7 @@ def test_bbt_pair_dropped_masks_and_vjp(rng):
 def test_mask_words_matches_dense_mask(rng):
     """mask_words applies the EXACT keep decision keep_mask_dense describes
     (same _keepword frame): unpacked masked words == B * mask."""
-    from igcn_cf_tpu.kernels.bitpack import mask_words, _seed_from_key
+    from igcn_cf.kernels.bitpack import mask_words, _seed_from_key
 
     p = 0.3
     b = (rng.random((TM, TK)) < 0.2).astype(np.float32)
@@ -234,7 +234,7 @@ def test_mask_words_matches_dense_mask(rng):
 def test_bbt_pair_premasked_matches_dropped(rng):
     """feat_aggregate's premasked training path == the in-kernel masked pair
     (same masks, same dots), including the swapped-operand VJP."""
-    from igcn_cf_tpu.kernels.bitpack import (
+    from igcn_cf.kernels.bitpack import (
         bbt_pair_dropped,
         bbt_pair_premasked,
         mask_words,
@@ -270,32 +270,6 @@ def test_bbt_pair_premasked_matches_dropped(rng):
     for g, w in zip(gp, gd):
         np.testing.assert_allclose(np.asarray(g), np.asarray(w),
                                    rtol=1e-5, atol=1e-4)
-
-
-@pytest.mark.parametrize("flat", [True, False, "loopcat"])
-@pytest.mark.parametrize("masked", [False, True])
-def test_bbt_pallas_interpret_matches_fallback(rng, flat, masked,
-                                               monkeypatch):
-    """The Pallas t-kernels (interpret mode — kernel logic, not Mosaic) are
-    bit-comparable to the XLA fallback, in every per-tile dot variant."""
-    import igcn_cf_tpu.kernels.bitpack as bp
-    from igcn_cf_tpu.kernels.bitpack import _t1_pallas, _t2_pallas, _t_xla
-
-    monkeypatch.setattr(bp, "T1_FLAT", flat is True)
-    monkeypatch.setattr(bp, "T2_FLAT", flat)
-    d, p = 8, 0.25
-    b = (rng.random((TM, TK)) < 0.1).astype(np.float32)
-    wp = jnp.asarray(pack_bits(b))
-    x1t = jnp.asarray(rng.normal(size=(d, TK)).astype(np.float32))
-    x2t = jnp.asarray(rng.normal(size=(d, TM)).astype(np.float32))
-    s1, s2 = jnp.uint32(5), jnp.uint32(9)
-    want1, want2 = _t_xla(wp, x1t, x2t, s1, s2, p, masked)
-    got1 = _t1_pallas(wp, x1t, s1, p, masked, interpret=True)
-    got2 = _t2_pallas(wp, x2t, s2, p, masked, interpret=True)
-    np.testing.assert_allclose(np.asarray(got1), np.asarray(want1),
-                               rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got2), np.asarray(want2),
-                               rtol=1e-5, atol=1e-4)
 
 
 def test_bipartite_dense_padding(tiny_ds):
@@ -354,8 +328,8 @@ def test_igcn_dense_training_runs(tmp_path, monkeypatch, tiny_ds):
 
 
 def test_ngcf_propagate_dense_matches_sparse(tiny_ds):
-    from igcn_cf_tpu.graph.build import l1_norm_adjacency_with_self_loops
-    from igcn_cf_tpu.kernels.sparse import SparseGraph, spmm
+    from igcn_cf.graph.build import l1_norm_adjacency_with_self_loops
+    from igcn_cf.kernels.sparse import SparseGraph, spmm
 
     coo = l1_norm_adjacency_with_self_loops(
         tiny_ds.train_array, tiny_ds.n_users, tiny_ds.n_items
@@ -419,7 +393,7 @@ def test_imcgae_dense_training_runs(tmp_path, monkeypatch, tiny_ds):
 def test_device_build_matches_host_build(tiny_ds):
     """BipartiteDense.build (device scatter pack) is bit-identical to the
     host pack oracle, including with duplicate interaction pairs."""
-    from igcn_cf_tpu.kernels.dense_graph import BipartiteDense
+    from igcn_cf.kernels.dense_graph import BipartiteDense
 
     a = BipartiteDense.build(tiny_ds.train_array, tiny_ds.n_users, tiny_ds.n_items)
     b = BipartiteDense.build_host(

@@ -7,11 +7,11 @@ import jax
 import numpy as np
 import pytest
 
-from igcn_cf_tpu.data.synthetic import synthetic_interactions
-from igcn_cf_tpu.data.transforms import dropit, dropui
-from igcn_cf_tpu.evaluation.inductive import inductive_eval
-from igcn_cf_tpu.models.base import get_model
-from igcn_cf_tpu.train.trainer import get_trainer
+from igcn_cf.data.synthetic import synthetic_interactions
+from igcn_cf.data.transforms import dropit, dropui
+from igcn_cf.evaluation.inductive import inductive_eval
+from igcn_cf.models.base import get_model
+from igcn_cf.train.trainer import get_trainer
 
 
 @pytest.fixture(autouse=True)

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from igcn_cf_tpu.graph.build import (
+from igcn_cf.graph.build import (
     bipartite_adjacency,
     build_feat_mat,
     graph_rank_nodes,
@@ -12,7 +12,7 @@ from igcn_cf_tpu.graph.build import (
     select_templates,
     sym_norm_adjacency,
 )
-from igcn_cf_tpu.kernels.sparse import (
+from igcn_cf.kernels.sparse import (
     SparseGraph,
     edge_dropout_vals,
     propagate_mean,
@@ -22,7 +22,7 @@ from igcn_cf_tpu.kernels.sparse import (
 
 
 def _rand_coo(rng, n_rows, n_cols, nnz):
-    from igcn_cf_tpu.graph.build import COO
+    from igcn_cf.graph.build import COO
 
     rows = rng.integers(0, n_rows, nnz).astype(np.int32)
     cols = rng.integers(0, n_cols, nnz).astype(np.int32)

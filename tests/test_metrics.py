@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from igcn_cf_tpu.evaluation.evaluate import evaluate, recommend
-from igcn_cf_tpu.evaluation.metrics import (
+from igcn_cf.evaluation.evaluate import evaluate, recommend
+from igcn_cf.evaluation.metrics import (
     calculate_metrics,
     calculate_metrics_slow,
     format_metrics,
@@ -102,7 +102,7 @@ def test_device_metrics_match_numpy():
     D2H) must reproduce the numpy path exactly."""
     import jax.numpy as jnp
 
-    from igcn_cf_tpu.evaluation.metrics import (
+    from igcn_cf.evaluation.metrics import (
         calculate_metrics,
         calculate_metrics_device,
     )

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from igcn_cf_tpu import native
-from igcn_cf_tpu.data.loaders import (
+from igcn_cf import native
+from igcn_cf.data.loaders import (
     _RawRecords,
     _update_ui_sets,
     remove_sparse_ui,

@@ -7,7 +7,7 @@ import jax
 import numpy as np
 import pytest
 
-from igcn_cf_tpu.data.padded import (
+from igcn_cf.data.padded import (
     ALIGN,
     bucket_size,
     pad_catalog,
@@ -49,8 +49,8 @@ def test_pad_catalog_idempotent_and_ghosts_empty(tiny_ds):
 def test_serve_bucketed_matches_unpadded(tiny_ds, tmp_path):
     """Recommender over the bucketed catalog returns the same top-k for real
     users as over the raw catalog, and never recommends a ghost item."""
-    from igcn_cf_tpu.models.base import get_model
-    from igcn_cf_tpu.serve import Recommender
+    from igcn_cf.models.base import get_model
+    from igcn_cf.serve import Recommender
 
     cfg = {"name": "IGCN", "embedding_size": 16, "n_layers": 2,
            "dropout": 0.0, "feature_ratio": 1.0, "graph_backend": "sparse",
@@ -72,7 +72,7 @@ def test_serve_bucketed_matches_unpadded(tiny_ds, tmp_path):
 
     # refresh with a GROWN catalog (same bucket on this tiny shape): shapes
     # unchanged, results still ghost-free and sized to the new real catalog
-    from igcn_cf_tpu.data.synthetic import synthetic_interactions
+    from igcn_cf.data.synthetic import synthetic_interactions
 
     grown = synthetic_interactions(
         n_users=tiny_ds.n_users + 7, n_items=tiny_ds.n_items + 9,
@@ -91,8 +91,8 @@ def test_serve_bucketed_matches_unpadded(tiny_ds, tmp_path):
 def test_serve_bucketed_bans_ghost_items(tiny_ds, tmp_path, monkeypatch):
     """Force a degenerate rep where ghost items would win the top-k (all
     real scores negative): the ghost ban must keep them out."""
-    from igcn_cf_tpu.models.base import get_model
-    from igcn_cf_tpu.serve import Recommender
+    from igcn_cf.models.base import get_model
+    from igcn_cf.serve import Recommender
 
     cfg = {"name": "MF", "embedding_size": 8}
     model = get_model(dict(cfg), tiny_ds)

@@ -8,12 +8,12 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from igcn_cf_tpu.core.mesh import DATA_AXIS, TABLE_AXIS, make_mesh
-from igcn_cf_tpu.graph.build import COO
-from igcn_cf_tpu.kernels.sparse import SparseGraph, spmm
-from igcn_cf_tpu.parallel.sharded import ShardedGraph, pad_rows, spmm_local
-from igcn_cf_tpu.parallel.steps import build_inmo_sharded_train, make_batch
-from igcn_cf_tpu.parallel.topk import sharded_topk
+from igcn_cf.core.mesh import DATA_AXIS, TABLE_AXIS, make_mesh
+from igcn_cf.graph.build import COO
+from igcn_cf.kernels.sparse import SparseGraph, spmm
+from igcn_cf.parallel.sharded import ShardedGraph, pad_rows, spmm_local
+from igcn_cf.parallel.steps import build_inmo_sharded_train, make_batch
+from igcn_cf.parallel.topk import sharded_topk
 
 
 @pytest.fixture(scope="module")
@@ -118,8 +118,8 @@ def test_sharded_inmo_train_step(mesh, tiny_ds):
 def test_dense_sharded_inmo_matches_single_device(mesh, tiny_ds):
     """No-dropout sharded dense loss must equal the single-device dense
     model's loss on the same params and batch."""
-    from igcn_cf_tpu.parallel.dense_steps import build_inmo_dense_sharded_train
-    from igcn_cf_tpu.models.base import get_model
+    from igcn_cf.parallel.dense_steps import build_inmo_dense_sharded_train
+    from igcn_cf.models.base import get_model
 
     train = build_inmo_dense_sharded_train(
         tiny_ds, mesh, embedding_size=8, n_layers=2, dropout=0.0,
@@ -165,8 +165,8 @@ def test_dense_sharded_inmo_matches_single_device(mesh, tiny_ds):
 
 def test_sharded_recommend_matches_single_device(mesh, tiny_ds):
     """Distributed masked top-k equals the single-device evaluator."""
-    from igcn_cf_tpu.evaluation.evaluate import recommend
-    from igcn_cf_tpu.parallel.eval import sharded_recommend
+    from igcn_cf.evaluation.evaluate import recommend
+    from igcn_cf.parallel.eval import sharded_recommend
 
     rng = np.random.default_rng(3)
     d = 16
@@ -198,7 +198,7 @@ def test_sharded_recommend_matches_single_device(mesh, tiny_ds):
 def test_dense_sharded_inmo_with_dropout(mesh, tiny_ds):
     """Dropout-on sharded step: per-shard mask seeds, finite losses, params
     actually move."""
-    from igcn_cf_tpu.parallel.dense_steps import build_inmo_dense_sharded_train
+    from igcn_cf.parallel.dense_steps import build_inmo_dense_sharded_train
 
     train = build_inmo_dense_sharded_train(
         tiny_ds, mesh, embedding_size=8, n_layers=2, dropout=0.3,
@@ -221,11 +221,11 @@ def test_dense_sharded_inmo_with_dropout(mesh, tiny_ds):
 def test_sharded_pcache_build_matches_oracle(mesh, tiny_ds):
     """Each shard's column slab of the sharded propagation cache
     (parallel/pcache.py) reassembles to the dense oracle P."""
-    from igcn_cf_tpu.kernels.dense_graph import BipartiteDense
-    from igcn_cf_tpu.kernels.pcache import prop_cache_oracle
-    from igcn_cf_tpu.parallel.pcache import build_sharded_pcache
-    from igcn_cf_tpu.parallel.sharded import ShardedGraph
-    from igcn_cf_tpu.graph.build import sym_norm_adjacency
+    from igcn_cf.kernels.pcache import prop_cache_oracle
+    from igcn_cf.kernels.sparse import SparseGraph
+    from igcn_cf.parallel.pcache import build_sharded_pcache
+    from igcn_cf.parallel.sharded import ShardedGraph
+    from igcn_cf.graph.build import sym_norm_adjacency
 
     n = tiny_ds.n_users + tiny_ds.n_items
     n_shards = mesh.shape[TABLE_AXIS]
@@ -233,21 +233,16 @@ def test_sharded_pcache_build_matches_oracle(mesh, tiny_ds):
         tiny_ds.train_array, tiny_ds.n_users, tiny_ds.n_items
     )
     rps = ShardedGraph.from_coo(adj, n_shards).rows_per_shard
-    bip = BipartiteDense.build(
-        tiny_ds.train_array, tiny_ds.n_users, tiny_ds.n_items
-    )
-    p4 = build_sharded_pcache(bip, mesh, 2, rps)
-    assert p4.shape[0] == n_shards and p4.shape[1] == n
+    pc = build_sharded_pcache(SparseGraph.from_coo(adj), mesh, 2, rps)
+    assert pc.shape[0] == n_shards and pc.shape[1] == n
 
     oracle = prop_cache_oracle(
         tiny_ds.train_array, tiny_ds.n_users, tiny_ds.n_items, 2
     )
-    stacked = np.asarray(p4, dtype=np.float32)
-    t_, n_, nj, sub, lanes = stacked.shape
-    width = nj * sub * lanes
+    stacked = np.asarray(pc, dtype=np.float32)
+    t_, n_, width = stacked.shape
     full = np.concatenate(
-        [stacked[t].reshape(n_, width)[:, :rps] for t in range(n_shards)],
-        axis=1,
+        [stacked[t][:, :rps] for t in range(n_shards)], axis=1,
     )
     np.testing.assert_allclose(full[:, :n], oracle, atol=8e-3)
     # padding columns (>= n globally, and per-shard beyond rps) are zero
@@ -256,12 +251,12 @@ def test_sharded_pcache_build_matches_oracle(mesh, tiny_ds):
     # Per-shard OVERLAP region [rps, width): the build fills it with the
     # NEXT shard's real P columns (global window [t*rps+rps, t*rps+width)),
     # NOT zeros — consumers must zero-pad X0 over those rows instead
-    # (parallel/pcache.py module docstring, ADVICE r4 #2). Pin the contents
+    # (parallel/pcache.py module docstring). Pin the contents
     # so a future refactor that pads X0 differently fails here loudly.
     oracle_pad = np.zeros((n_, n_shards * rps + width), np.float32)
     oracle_pad[:, :n] = oracle
     for t in range(n_shards):
-        slab = stacked[t].reshape(n_, width)
+        slab = stacked[t]
         np.testing.assert_allclose(
             slab[:, rps:],
             oracle_pad[:, t * rps + rps : t * rps + width],
@@ -271,7 +266,7 @@ def test_sharded_pcache_build_matches_oracle(mesh, tiny_ds):
 
 
 def test_sharded_pcache_step_matches_recompute(mesh, tiny_ds):
-    """The cached sharded engine (fused gather over local P slabs + psum)
+    """The cached sharded engine (gather+matmul over local P slabs + psum)
     must reproduce the recompute engine's loss and parameter trajectory to
     bf16-storage tolerance — same seeds, no dropout."""
 
@@ -319,24 +314,22 @@ def test_sharded_pcache_epoch_fn_runs(mesh, tiny_ds):
 
 def test_sharded_pcache_host_build_matches_device(mesh, tiny_ds):
     """The scipy host builder (mid-scale demos) produces the same stacked
-    sharded slab layout as the bit-packed device build, to bf16 tolerance."""
-    from igcn_cf_tpu.kernels.dense_graph import BipartiteDense
-    from igcn_cf_tpu.parallel.pcache import (
+    sharded slab layout as the device build, to bf16 tolerance."""
+    from igcn_cf.kernels.sparse import SparseGraph
+    from igcn_cf.parallel.pcache import (
         build_sharded_pcache,
         build_sharded_pcache_host,
     )
-    from igcn_cf_tpu.graph.build import sym_norm_adjacency
+    from igcn_cf.graph.build import sym_norm_adjacency
 
     n_shards = mesh.shape[TABLE_AXIS]
     adj = sym_norm_adjacency(
         tiny_ds.train_array, tiny_ds.n_users, tiny_ds.n_items
     )
     rps = ShardedGraph.from_coo(adj, n_shards).rows_per_shard
-    bip = BipartiteDense.build(
-        tiny_ds.train_array, tiny_ds.n_users, tiny_ds.n_items
-    )
     dev = np.asarray(
-        build_sharded_pcache(bip, mesh, 2, rps), dtype=np.float32
+        build_sharded_pcache(SparseGraph.from_coo(adj), mesh, 2, rps),
+        dtype=np.float32,
     )
     host = np.asarray(
         build_sharded_pcache_host(
@@ -351,15 +344,15 @@ def test_sharded_pcache_host_build_matches_device(mesh, tiny_ds):
 
 @pytest.mark.slow
 def test_sharded_pcache_midscale_parity(mesh):
-    """VERDICT r4 next #5: the sharded cached engine END-TO-END at a
-    non-toy shape on the virtual mesh — per-shard slab columns span many
-    alignment blocks (width 4096 = 8 DMA-aligned blocks/shard vs the toy
-    tests' 1), and the cached trajectory must track recompute. The full
-    mid-scale artifact (n=64k nodes, 2.1 GB slabs) is
-    tools/sharded_midscale.py -> SHARDED_MIDSCALE.json; this test keeps a
-    smaller-but-structurally-real shape in CI."""
-    from igcn_cf_tpu.data.synthetic import synthetic_interactions
-    from igcn_cf_tpu.parallel.pcache import shard_slab_width
+    """The sharded cached engine end to end at a non-toy shape on the
+    virtual mesh — per-shard slab columns span several alignment blocks
+    (vs the toy tests' 1), and the cached trajectory must track recompute.
+    The full mid-scale demonstration (n=64k nodes) is
+    tools/sharded_midscale.py; this test keeps a smaller but structurally
+    real shape."""
+    from igcn_cf.data.synthetic import synthetic_interactions
+    from igcn_cf.kernels.pcache import ALIGN
+    from igcn_cf.parallel.pcache import shard_slab_width
 
     ds = synthetic_interactions(
         n_users=6500, n_items=9500, avg_degree=10, seed=5
@@ -367,7 +360,7 @@ def test_sharded_pcache_midscale_parity(mesh):
     n_shards = mesh.shape[TABLE_AXIS]
     n = ds.n_users + ds.n_items
     rps = -(-n // (n_shards * 8)) * 8
-    assert shard_slab_width(rps) >= 4096  # real multi-block slabs
+    assert shard_slab_width(rps) >= 2 * ALIGN  # real multi-block slabs
 
     def build(prop_cache):
         return build_inmo_sharded_train(
@@ -379,9 +372,9 @@ def test_sharded_pcache_midscale_parity(mesh):
     t_cache = build("host")
     t_rec = build(False)
     assert "pcache" in t_cache.buffers
-    p4 = t_cache.buffers["pcache"]
-    assert p4.shape[0] == n_shards
-    assert p4.shape[2] * p4.shape[3] * p4.shape[4] == shard_slab_width(rps)
+    slabs = t_cache.buffers["pcache"]
+    assert slabs.shape[0] == n_shards
+    assert slabs.shape[2] == shard_slab_width(rps)
 
     rng = np.random.default_rng(2)
     pc, oc = t_cache.params, t_cache.opt_state

@@ -1,260 +1,140 @@
-"""Fused score+mask+top-k retrieval kernel (kernels/retrieval.py): exact
-parity with the masked flat top-k oracle in interpreter mode, packing-layout
-round trip, and the evaluator's packed fast path end-to-end against the scan
-path."""
+"""Full-catalog retrieval on the XLA scan evaluator: exact parity of the
+traced score/mask/top-k scan with a masked flat argsort oracle (several
+user blocks, the chunked two-stage top-k, adversarial ties), float32 scoring
+at full precision, and the one-dispatch eval (rep + scan + device metrics
+in one jit) against the per-step evaluator."""
 
-from functools import partial
+import importlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from igcn_cf_tpu.kernels.retrieval import (
-    NEG,
-    fused_topk_ids,
-    pack_exclusion_words,
-    use_fused_retrieval,
-)
+from igcn_cf.evaluation.evaluate import pad_user_blocks, scan_topk, score
+
+ev = importlib.import_module("igcn_cf.evaluation.evaluate")
 
 
-def _mk_case(rng, n_users, n_items, d, nup, nip, li):
-    ur = rng.normal(size=(nup, d)).astype(np.float32)
-    it = rng.normal(size=(d, nip)).astype(np.float32)
-    it[:, n_items:] = 0.0
+def _mk_case(rng, n_users, n_items, d):
+    ur = rng.normal(size=(n_users, d)).astype(np.float32)
+    it = rng.normal(size=(d, n_items)).astype(np.float32)
     excl = [
         list(rng.choice(n_items, size=rng.integers(0, 20), replace=False))
         for _ in range(n_users)
-    ] + [[] for _ in range(nup - n_users)]
-    words = pack_exclusion_words(excl, nup, n_items, nip, li=li)
-    return ur, it, excl, words
+    ]
+    width = max(1, max(len(x) for x in excl))
+    ids = np.full((n_users, width), n_items, np.int32)
+    for u, x in enumerate(excl):
+        ids[u, : len(x)] = x
+    return ur, it, excl, ids
 
 
-def _oracle(ur, it, excl, banned_items, n_users, n_items, k):
-    scores = ur @ it
-    for u in range(n_users):
-        if len(excl[u]):
-            scores[u, np.asarray(excl[u], dtype=np.int64)] = -np.inf
+def _oracle(ur, it, excl, banned_items, k):
+    scores = ur.astype(np.float64) @ it.astype(np.float64)
+    for u, x in enumerate(excl):
+        if len(x):
+            scores[u, np.asarray(x, dtype=np.int64)] = -np.inf
     if banned_items is not None:
         scores[:, np.asarray(banned_items, dtype=np.int64)] = -np.inf
-    scores[:, n_items:] = -np.inf
     return np.argsort(-scores, axis=1, kind="stable")[:, :k]
 
 
-def test_fused_topk_matches_oracle():
+def _run(ur, it, ids, banned_items, k, block):
+    n_users, n_items = ur.shape[0], it.shape[1]
+    banned = np.zeros(n_items, bool)
+    if banned_items is not None:
+        banned[banned_items] = True
+    users_pad = pad_user_blocks(n_users, block)
+    rec = scan_topk(jnp.asarray(ur), jnp.asarray(it), jnp.asarray(users_pad),
+                    jnp.asarray(ids), jnp.asarray(banned), k, n_items)
+    return np.asarray(rec)[:n_users]
+
+
+def test_scan_topk_matches_oracle():
     rng = np.random.default_rng(0)
-    n_users, n_items, d, k = 70, 300, 16, 10
-    bu, li = 32, 128
-    nup, nip = 96, 384
-    ur, it, excl, words = _mk_case(rng, n_users, n_items, d, nup, nip, li)
-    banned_items = rng.choice(n_items, size=15, replace=False)
-    banned = np.zeros((1, nip), np.float32)
-    banned[0, banned_items] = NEG
-    banned[0, n_items:] = NEG
-
-    got = np.asarray(
-        fused_topk_ids(
-            jnp.asarray(ur), jnp.asarray(it), jnp.asarray(words),
-            jnp.asarray(banned), k=k, interpret=True, bu=bu, li=li,
-        )
-    )[:n_users]
-    want = _oracle(ur.copy(), it, excl, banned_items, n_users, n_items, k)[
-        :n_users
-    ]
-    np.testing.assert_array_equal(got, want)
+    ur, it, excl, ids = _mk_case(rng, 70, 300, 16)
+    banned_items = rng.choice(300, size=15, replace=False)
+    got = _run(ur, it, ids, banned_items, 10, 32)
+    np.testing.assert_array_equal(got, _oracle(ur, it, excl, banned_items, 10))
 
 
-def test_fused_topk_multi_chunk_and_blocks():
-    """Several user blocks AND item chunks: the running-merge across chunks
-    must stay exact."""
+@pytest.mark.parametrize("chunk", [1 << 20, 128])
+def test_scan_topk_multi_block_and_chunks(chunk, monkeypatch):
+    """Several user blocks (the last one padded) with one flat top-k (a
+    chunk wider than the catalog) and, with a small chunk, the two-stage
+    top-k's re-rank across item chunks: both exact."""
+    monkeypatch.setattr(ev, "_TOPK_CHUNK", chunk)
     rng = np.random.default_rng(3)
-    n_users, n_items, d, k = 150, 1000, 8, 7
-    bu, li = 64, 256
-    nup, nip = 192, 1024
-    ur, it, excl, words = _mk_case(rng, n_users, n_items, d, nup, nip, li)
-    banned = np.zeros((1, nip), np.float32)
-    banned[0, n_items:] = NEG
-    got = np.asarray(
-        fused_topk_ids(
-            jnp.asarray(ur), jnp.asarray(it), jnp.asarray(words),
-            jnp.asarray(banned), k=k, interpret=True, bu=bu, li=li,
-        )
-    )[:n_users]
-    want = _oracle(ur.copy(), it, excl, None, n_users, n_items, k)[:n_users]
+    ur, it, excl, ids = _mk_case(rng, 150, 1000, 8)
+    got = _run(ur, it, ids, None, 7, 64)
+    np.testing.assert_array_equal(got, _oracle(ur, it, excl, None, 7))
+
+
+@pytest.mark.parametrize("field", ["constant", "bf16_quantized"])
+def test_scan_topk_adversarial_ties(field, monkeypatch):
+    """Tie policy under massive duplication: equal scores resolve
+    lowest-item-id-first within rank K, across chunk boundaries — the
+    stable flat argsort order. A constant field (all items tied) and a
+    bf16-quantized random field (many cross-chunk tie groups, the common
+    case with bf16 reps)."""
+    monkeypatch.setattr(ev, "_TOPK_CHUNK", 128)
+    n_users, n_items, d, k = 40, 1000, 4, 10
+    rng = np.random.default_rng(17)
+    if field == "constant":
+        row = np.full((n_items,), 0.5, np.float32)
+    else:
+        row = rng.uniform(0.1, 1.0, size=n_items).astype(np.float32)
+        row = row.astype(jnp.bfloat16).astype(np.float32)
+    # rank-1 scores: every user sees the same row, so ties are global
+    ur = np.ones((n_users, d), np.float32) / d
+    it = np.broadcast_to(row, (d, n_items)).astype(np.float32).copy()
+    ids = np.full((n_users, 1), n_items, np.int32)
+    got = _run(ur, it, ids, None, k, 32)
+    scores = (ur @ it).astype(np.float32)
+    want = np.argsort(-scores, axis=1, kind="stable")[:, :k]
     np.testing.assert_array_equal(got, want)
 
 
-def test_pack_layout_roundtrip():
-    """Bit-plane packing: item c lands at chunk c//li, plane (c%li)//(li/32),
-    word (c%li)%(li/32)."""
-    li, lw = 128, 4
-    n_items, nip = 200, 256
-    lists = [[0, 31, 32, 127, 128, 199]]
-    words = pack_exclusion_words(lists, 1, n_items, nip, li=li)
-    assert words.shape == (1, nip // 32)
-    for item in lists[0]:
-        j, r = divmod(item, li)
-        b, w = divmod(r, lw)
-        assert (int(words[0, j * lw + w]) >> b) & 1 == 1, item
-    assert int(sum(bin(int(x)).count("1") for x in words[0])) == len(lists[0])
-
-
-def test_gating_off_on_cpu():
-    assert not use_fused_retrieval(10**6)  # tests run on the CPU mesh
-
-
-def test_packed_eval_path_matches_scan(tiny_ds, monkeypatch):
-    """The evaluator's wants_packed fast path returns the same metrics as
-    the scan path (kernel in interpreter mode, forced on)."""
-    import igcn_cf_tpu.kernels.retrieval as retr
-    import igcn_cf_tpu.models.base as base_mod
-    from igcn_cf_tpu.models.base import get_model
-    from igcn_cf_tpu.evaluation.evaluate import evaluate
-
-    model = get_model(
-        {"name": "MF", "embedding_size": 16}, tiny_ds
+def test_score_runs_at_full_float32_precision():
+    """The scoring product asks for HIGHEST precision: a default-precision
+    float32 product may run in TF32 on the GPU."""
+    jaxpr = jax.make_jaxpr(score)(jnp.ones((4, 8)), jnp.ones((8, 16)))
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert dots and all(
+        e.params["precision"] in (jax.lax.Precision.HIGHEST,
+                                  (jax.lax.Precision.HIGHEST,) * 2)
+        for e in dots
     )
-    params = model.init_params(jax.random.PRNGKey(0))
-    buffers = model.init_buffers()
-
-    scan_fn = model.make_recommend_fn(params, buffers)
-    assert not getattr(scan_fn, "wants_packed", False)
-    _, want = evaluate(None, tiny_ds, "test", [10], recommend_fn=scan_fn)
-
-    monkeypatch.setattr(retr, "use_fused_retrieval", lambda n: True)
-    monkeypatch.setattr(
-        retr, "fused_topk_ids", partial(retr.fused_topk_ids, interpret=True)
-    )
-    model._jit_cache.pop("recommend_scan", None)
-    fused_fn = model.make_recommend_fn(params, buffers)
-    assert getattr(fused_fn, "wants_packed", False)
-    _, got = evaluate(None, tiny_ds, "test", [10], recommend_fn=fused_fn)
-    for name in ("Precision", "Recall", "NDCG"):
-        assert got[name][10] == pytest.approx(want[name][10], rel=1e-5)
+    x = np.random.default_rng(0).normal(size=(4, 8)).astype(np.float32)
+    y = np.random.default_rng(1).normal(size=(8, 16)).astype(np.float32)
+    np.testing.assert_allclose(np.asarray(score(jnp.asarray(x), jnp.asarray(y))),
+                               x @ y, rtol=1e-5, atol=1e-5)
 
 
-def test_fused_one_dispatch_eval_matches_scan(tiny_ds, monkeypatch):
-    """The round-5 one-dispatch eval (rep + fused retrieval + device metrics
-    in ONE jit, models/base.py::make_fused_eval_fn) returns the same metrics
-    as the scan path, including with banned items (the inductive slices)."""
-    import igcn_cf_tpu.kernels.retrieval as retr
-    from igcn_cf_tpu.models.base import get_model
-    from igcn_cf_tpu.evaluation.evaluate import evaluate, evaluate_fused
+def test_one_dispatch_eval_matches_scan(tiny_ds):
+    """The one-dispatch eval (rep + scan of score/mask/top-k + device
+    metrics in one jit, models/base.py::make_eval_fn) returns the same
+    metrics as the scan recommender with host metrics, including with
+    banned items (the inductive slices)."""
+    from igcn_cf.evaluation.evaluate import evaluate, evaluate_one_dispatch
+    from igcn_cf.models.base import get_model
 
     model = get_model({"name": "MF", "embedding_size": 16}, tiny_ds)
     params = model.init_params(jax.random.PRNGKey(0))
     buffers = model.init_buffers()
-
     scan_fn = model.make_recommend_fn(params, buffers)
-    assert model.make_fused_eval_fn(params, buffers) is None  # CPU: gated off
-
-    monkeypatch.setattr(retr, "use_fused_retrieval", lambda n: True)
-    monkeypatch.setattr(
-        retr, "fused_topk_ids", partial(retr.fused_topk_ids, interpret=True)
-    )
-    fused_eval = model.make_fused_eval_fn(params, buffers)
-    assert fused_eval is not None
+    eval_fn = model.make_eval_fn(params, buffers)
+    assert eval_fn is not None
 
     banned = np.asarray([0, 3, tiny_ds.n_items - 1])
     for split, b in (("val", None), ("test", None), ("test", banned)):
         _, want = evaluate(None, tiny_ds, split, [5, 10], banned_items=b,
-                           recommend_fn=scan_fn)
-        _, got = evaluate_fused(fused_eval, tiny_ds, split, [5, 10],
-                                banned_items=b)
+                           test_batch_size=16, recommend_fn=scan_fn)
+        _, got = evaluate_one_dispatch(eval_fn, tiny_ds, split, [5, 10],
+                                       banned_items=b, test_batch_size=16)
         for name in ("Precision", "Recall", "NDCG"):
             for k in (5, 10):
                 assert got[name][k] == pytest.approx(want[name][k], rel=1e-5), (
                     split, name, k
                 )
-
-
-def test_device_pack_matches_host_pack():
-    """pack_exclusion_words_device (scatter-add of distinct bit powers)
-    reproduces the host bit-plane packing exactly."""
-    from igcn_cf_tpu.kernels.retrieval import pack_exclusion_words_device
-
-    rng = np.random.default_rng(9)
-    n_users, n_items, nip, li = 40, 500, 512, 128
-    lists = [
-        sorted(rng.choice(n_items, size=int(s), replace=False).tolist())
-        for s in rng.integers(0, 25, n_users)
-    ]
-    want = pack_exclusion_words(lists, n_users, n_items, nip, li=li)
-    rows = np.concatenate(
-        [np.full(len(x), u, np.int32) for u, x in enumerate(lists) if len(x)]
-    )
-    cols = np.concatenate([np.asarray(x, np.int32) for x in lists if len(x)])
-    got = np.asarray(
-        pack_exclusion_words_device(rows, cols, n_users, nip, li=li)
-    )
-    np.testing.assert_array_equal(got, want)
-
-    # empty input packs to zeros
-    z = pack_exclusion_words_device(
-        np.zeros(0, np.int32), np.zeros(0, np.int32), 4, 256, li=128
-    )
-    assert not np.asarray(z).any()
-
-
-def test_device_pack_dedupes_duplicate_pairs():
-    """Callers feed concatenations that can repeat a (user, item) pair
-    (train[u]+val[u] unions, serve exclude='all'); the scatter-add packing
-    must dedupe or a duplicate's power of two carries into the adjacent bit
-    (ADVICE r4 #1). Duplicated input must pack identically to unique input."""
-    from igcn_cf_tpu.kernels.retrieval import pack_exclusion_words_device
-
-    n_users, n_items, nip, li = 8, 300, 384, 128
-    lists = [[5, 77, 129, 283], [0, 1, 2], [], [299]] + [[]] * 4
-    want = pack_exclusion_words(lists, n_users, n_items, nip, li=li)
-    rows, cols = [], []
-    for u, items in enumerate(lists):
-        for rep in (1, 2, 3):  # every pair 1-3 times
-            for it in items[: len(items) if rep == 1 else rep]:
-                rows.append(u)
-                cols.append(it)
-    got = np.asarray(
-        pack_exclusion_words_device(
-            np.asarray(rows, np.int32), np.asarray(cols, np.int32),
-            n_users, nip, li=li,
-        )
-    )
-    np.testing.assert_array_equal(got, want)
-
-
-def test_fused_topk_adversarial_ties():
-    """Tie policy under massive duplication (kernels/retrieval.py docstring):
-    equal scores resolve lowest-item-id-first within rank K, across chunk
-    boundaries — exactly the stable flat argsort order. Two fields: a
-    constant (ALL items tied) and a bf16-quantized random field (many
-    cross-chunk tie groups, the common case with bf16 reps)."""
-    bu, li, k = 32, 128, 10
-    n_users, n_items, d = 40, 1000, 4
-    nup, nip = 64, 1024
-    rng = np.random.default_rng(17)
-
-    def run(it_row):
-        # rank-1 scores: every user sees the same row, so ties are global
-        ur = np.ones((nup, d), np.float32) / d
-        it = np.broadcast_to(it_row, (d, nip)).astype(np.float32).copy()
-        it[:, n_items:] = 0.0
-        excl = [[] for _ in range(nup)]
-        words = pack_exclusion_words(excl, nup, n_items, nip, li=li)
-        banned = np.zeros((1, nip), np.float32)
-        banned[0, n_items:] = NEG
-        got = np.asarray(
-            fused_topk_ids(
-                jnp.asarray(ur), jnp.asarray(it), jnp.asarray(words),
-                jnp.asarray(banned), k=k, interpret=True, bu=bu, li=li,
-            )
-        )[:n_users]
-        scores = (ur @ it).astype(np.float32)
-        scores[:, n_items:] = -np.inf
-        want = np.argsort(-scores, axis=1, kind="stable")[:n_users, :k]
-        np.testing.assert_array_equal(got, want)
-
-    # constant field: expected result is exactly ids 0..k-1 for every user
-    run(np.full((nip,), 0.5, np.float32))
-    # bf16-quantized uniform values: ~256 distinct values over 1000 items ->
-    # every tie group spans multiple 128-item chunks
-    vals = rng.uniform(0.1, 1.0, size=nip).astype(np.float32)
-    run(vals.astype(jnp.bfloat16).astype(np.float32))

@@ -1,6 +1,6 @@
 """Sharded INMO trainer: full epoch loop over the virtual CPU mesh.
 
-VERDICT r1 Missing #3/#4: the sharded path must be a real trainer — epoch
+the sharded path must be a real trainer — epoch
 scan with device-side positive-excluding sampling and a distinct aux stream,
 per-epoch alpha anneal, sharded validation, best-checkpoint/early-stop, and
 feature_ratio<1 template support — and it must reach the same quality as the
@@ -13,8 +13,8 @@ import jax
 import numpy as np
 import pytest
 
-from igcn_cf_tpu.core.mesh import make_mesh
-from igcn_cf_tpu.parallel.trainer import ShardedIGCNTrainer
+from igcn_cf.core.mesh import make_mesh
+from igcn_cf.parallel.trainer import ShardedIGCNTrainer
 
 
 @pytest.fixture(scope="module")
@@ -48,15 +48,15 @@ def test_sharded_trainer_matches_single_device(small_ds, tmp_path, monkeypatch):
 
     # single-device reference on the same data/hyperparameters (different
     # init/sampling streams -> statistical, not bitwise, agreement)
-    from igcn_cf_tpu.models.base import get_model
-    from igcn_cf_tpu.train.trainer import get_trainer
+    from igcn_cf.models.base import get_model
+    from igcn_cf.train.trainer import get_trainer
 
     model = get_model(dict(MODEL_CFG), small_ds)
     ref = get_trainer(
         dict(TRAIN_CFG, name="IGCNTrainer", optimizer="Adam"), small_ds, model
     )
     best_single = ref.train(verbose=False)
-    # reference-matching claim needs a tight band (round-2 VERDICT weak #3):
+    # reference-matching claim needs a tight band:
     # both trainers run the same data/hyperparameters to (near) convergence,
     # so quality must agree within 15% relative despite distinct init/sampling
     # streams
@@ -84,7 +84,7 @@ def test_sharded_trainer_feature_ratio(small_ds, tmp_path, monkeypatch):
 def test_sharded_trainer_resume_roundtrip(small_ds, tmp_path, monkeypatch):
     """Full-state save/resume: a run interrupted mid-training and resumed
     from the state file continues from the next epoch with the same best
-    metric, patience, alpha and RNG stream (round-2 VERDICT missing #6)."""
+    metric, patience, alpha and RNG stream."""
     monkeypatch.chdir(tmp_path)
     mesh = make_mesh(jax.devices()[:8], data=2, table=4)
     cfg = dict(TRAIN_CFG, n_epochs=4, val_interval=1, state_interval=1)
@@ -121,7 +121,7 @@ def test_sharded_trainer_resume_roundtrip(small_ds, tmp_path, monkeypatch):
 def test_sharded_sampler_streams_distinct(small_ds):
     """Main and aux samplers draw from distinct streams and exclude
     positives (reference trainer.py:287-296, dataset.py:125-128)."""
-    from igcn_cf_tpu.parallel.steps import build_inmo_sharded_train
+    from igcn_cf.parallel.steps import build_inmo_sharded_train
 
     mesh = make_mesh(jax.devices()[:4], data=1, table=4)
     ts = build_inmo_sharded_train(
@@ -147,14 +147,14 @@ def test_sharded_sampler_streams_distinct(small_ds):
 
 def test_sharded_dropui_zero_shot_matches_single_device(tiny_ds, tmp_path,
                                                         monkeypatch):
-    """Sharded inductive rebuild (VERDICT r4 item #4): after training on the
+    """Sharded inductive rebuild: after training on the
     dropui (80%-users/items) split and rebuilding over the full split with
     the SAME template maps and parameters, the zero-shot representations of
     NEW users/items from the sharded path must match the single-chip IGCN
     rebuild on identical parameters."""
     monkeypatch.chdir(tmp_path)
-    from igcn_cf_tpu.data.transforms import dropui
-    from igcn_cf_tpu.models.base import get_model
+    from igcn_cf.data.transforms import dropui
+    from igcn_cf.models.base import get_model
 
     reduced = dropui(tiny_ds, 0.8)
     mesh = make_mesh(jax.devices()[:8], data=2, table=4)
@@ -210,7 +210,7 @@ def test_sharded_dropit_rebuild_runs(tiny_ds, tmp_path, monkeypatch):
     """Sharded dropit: stale-vs-rebuilt eval both run; the rebuilt graph sees
     the full interactions (same node counts)."""
     monkeypatch.chdir(tmp_path)
-    from igcn_cf_tpu.data.transforms import dropit
+    from igcn_cf.data.transforms import dropit
 
     reduced = dropit(tiny_ds, 0.8)
     assert reduced.n_users == tiny_ds.n_users

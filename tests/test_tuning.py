@@ -10,7 +10,7 @@ stream, so their per-trial best val NDCGs must agree.
 import numpy as np
 import pytest
 
-from igcn_cf_tpu.data.synthetic import synthetic_interactions
+from igcn_cf.data.synthetic import synthetic_interactions
 
 
 @pytest.fixture(scope="module")
@@ -31,8 +31,8 @@ GRID = {"lr": [1e-2, 1e-3], "l2_reg": [0.0, 1e-3]}
 
 def test_population_matches_sequential(grid_ds, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    from igcn_cf_tpu.tuning.grid import grid_search
-    from igcn_cf_tpu.tuning.population import population_grid_search
+    from igcn_cf.tuning.grid import grid_search
+    from igcn_cf.tuning.population import population_grid_search
 
     dc = {"name": "ProcessedDataset", "path": grid_ds}
     seq = grid_search(dc, MODEL_CONFIG, dict(TRAINER_CONFIG), GRID, verbose=False)
@@ -53,8 +53,8 @@ def test_population_sharded_over_mesh(grid_ds, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     import jax
 
-    from igcn_cf_tpu.core.mesh import make_mesh
-    from igcn_cf_tpu.tuning.population import population_grid_search
+    from igcn_cf.core.mesh import make_mesh
+    from igcn_cf.tuning.population import population_grid_search
 
     mesh = make_mesh(jax.devices()[:4], data=4, table=1)
     dc = {"name": "ProcessedDataset", "path": grid_ds}
@@ -68,7 +68,7 @@ def test_population_sharded_over_mesh(grid_ds, tmp_path, monkeypatch):
 def test_tune_preset_auto_routing():
     """'auto' picks population only for BPR-family grids with >1 traced
     combos."""
-    from igcn_cf_tpu.tuning.grid import GRIDS, _population_profitable
+    from igcn_cf.tuning.grid import GRIDS, _population_profitable
 
     assert _population_profitable("BPRTrainer", GRIDS["MF"])
     assert _population_profitable("IGCNTrainer", GRIDS["IGCN"])

@@ -1,7 +1,7 @@
-"""Focused eval-throughput harness (round-4 item #2 iteration loop): builds
-IGCN on the recompute engine (no P build — eval never uses the cache) on the
-bench dataset and times trainer.eval('val') repeatedly, printing per-rep wall
-and the rep/scan/metrics breakdown. Usage: python tools/bench_eval.py [reps]
+"""Focused eval-throughput harness: builds IGCN on the recompute engine (no
+P build — eval never uses the cache) on the Gowalla-shaped dataset and times
+trainer.eval('val') repeatedly, printing per-rep wall and the
+rep/scan/metrics breakdown. Usage: python tools/bench_eval.py [reps]
 """
 
 from __future__ import annotations
@@ -12,19 +12,17 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
 
 
 def main():
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 5
     import jax
-    import jax.numpy as jnp
 
-    from bench import _bench_dataset
-    from igcn_cf_tpu.models.base import get_model
-    from igcn_cf_tpu.train.trainer import get_trainer
+    from igcn_cf.data.synthetic import gowalla_shaped
+    from igcn_cf.models.base import get_model
+    from igcn_cf.train.trainer import get_trainer
 
-    ds = _bench_dataset()
+    ds = gowalla_shaped()
     print(f"# {ds.n_users} users x {ds.n_items} items", flush=True)
     model = get_model(
         {"name": "IGCN", "embedding_size": 64, "n_layers": 3, "dropout": 0.3,
@@ -51,8 +49,9 @@ def main():
               flush=True)
 
     # breakdown
-    probe = jax.jit(lambda x: jnp.sum(x))
-    rep_fn = model._jit_cache["rep_eval"]
+    rep_fn = model._get_jit(
+        "rep_eval", lambda: (lambda p, b: model.rep(p, b, train=False, key=None))
+    )
 
     def timed(f, warm=1, n=3):
         for _ in range(warm):
@@ -62,10 +61,11 @@ def main():
             f()
         return (time.time() - t0) / n * 1e3
 
-    from igcn_cf_tpu.evaluation.evaluate import recommend
-    from igcn_cf_tpu.evaluation.metrics import calculate_metrics
+    from igcn_cf.evaluation.evaluate import recommend
+    from igcn_cf.evaluation.metrics import calculate_metrics
 
-    t_rep = timed(lambda: float(probe(rep_fn(trainer.params, trainer.buffers))))
+    t_rep = timed(lambda: jax.block_until_ready(
+        rep_fn(trainer.params, trainer.buffers)))
     rec_fn = model.make_recommend_fn(trainer.params, trainer.buffers)
     t_rec = timed(lambda: recommend(None, ds, "val", [20],
                                     test_batch_size=512, recommend_fn=rec_fn))
@@ -73,7 +73,7 @@ def main():
                     recommend_fn=rec_fn)
     t_met = timed(lambda: calculate_metrics(ds.val, rec, [20]))
     print(f"rep {t_rep:.1f} ms | rec_total {t_rec:.1f} ms "
-          f"(scan+topk+D2H ~{t_rec - t_rep:.1f}) | metrics {t_met:.1f} ms",
+          f"(scan+topk+copy ~{t_rec - t_rep:.1f}) | metrics {t_met:.1f} ms",
           flush=True)
 
 

@@ -19,10 +19,10 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from igcn_cf_tpu.core.prng import set_seed
-from igcn_cf_tpu.data.synthetic import synthetic_interactions
-from igcn_cf_tpu.models.base import get_model
-from igcn_cf_tpu.train.trainer import get_trainer
+from igcn_cf.core.prng import set_seed
+from igcn_cf.data.synthetic import synthetic_interactions
+from igcn_cf.models.base import get_model
+from igcn_cf.train.trainer import get_trainer
 
 N_EPOCHS = 300  # MF converges slowest at lr 1e-3 (reference trains 1000)
 VAL_INTERVAL = 5

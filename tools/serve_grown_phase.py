@@ -1,7 +1,8 @@
 """One phase of the grown-catalog serving probe (driven by
-tools/bench_serve_grown.py; do not run two TPU phases concurrently).
+tools/bench_serve_grown.py; one process per card: do not run two phases at
+once).
 
-Scenario (VERDICT r4 next #1, the INMO headline): a model trained on the
+Scenario (the INMO headline): a model trained on the
 dropui-reduced catalog serves; the catalog GROWS to the full Gowalla shape
 (new users + items); the service refreshes inductively — zero gradient
 steps. The reference does this in 3.4 s (reference run/plot.py:200-201).
@@ -11,7 +12,7 @@ steps. The reference does this in 3.4 s (reference run/plot.py:200-201).
                  the grown one (compiles every executable at both buckets).
   phase=measure  FRESH process (cold in-process jit caches, warm disk
                  cache): same construction, then time refresh(grown) — the
-                 number SERVE.json reports as refresh_grown_first_s.
+                 number .cache/serve.json reports as refresh_grown_first_s.
 
 Prints one JSON line."""
 
@@ -27,7 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CKPT = os.path.join(ROOT, ".serve_grown_ckpt.pkl")
+CKPT = os.path.join(ROOT, ".cache", "serve_grown_ckpt.pkl")
 
 CFG = {"name": "IGCN", "embedding_size": 64, "n_layers": 3,
        "dropout": 0.3, "feature_ratio": 1.0, "prop_cache": False,
@@ -38,20 +39,21 @@ def main():
     phase = sys.argv[1]
     if len(sys.argv) > 2:
         CFG["graph_backend"] = sys.argv[2]
-    from bench import _bench_dataset
-    from igcn_cf_tpu.data.padded import bucket_size
-    from igcn_cf_tpu.data.transforms import dropui
-    from igcn_cf_tpu.models.base import get_model
-    from igcn_cf_tpu.serve import Recommender
+    from igcn_cf.data.synthetic import gowalla_shaped
+    from igcn_cf.data.padded import bucket_size
+    from igcn_cf.data.transforms import dropui
+    from igcn_cf.models.base import get_model
+    from igcn_cf.serve import Recommender
 
     import jax
 
-    full = _bench_dataset()
+    full = gowalla_shaped()
     reduced = dropui(full, 0.8)
 
     if not os.path.exists(CKPT):
         model = get_model(dict(CFG), reduced)
         params = model.init_params(jax.random.PRNGKey(0))
+        os.makedirs(os.path.dirname(CKPT), exist_ok=True)
         model.save(CKPT, params)
         del model
 

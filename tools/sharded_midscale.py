@@ -1,21 +1,17 @@
-"""Mid-scale END-TO-END demonstration of the sharded propagation-cache
-engine on the 8-device virtual CPU mesh -> SHARDED_MIDSCALE.json.
+"""Mid-scale end-to-end demonstration of the sharded propagation-cache
+engine on the 8-device virtual CPU mesh -> .cache/sharded_midscale.json.
 
-VERDICT r4 next #5: the sharded cached engine had only ever run end-to-end
-at toy shapes; the Amazon number was a projection. This runs the REAL
-sharded train step (parallel/steps.py, prop_cache slabs + fused gather +
-psum) at ~64k nodes — per-shard slab 64k x 16384 bf16 = 2.1 GB, spanning 4
-DMA-alignment blocks per shard — and asserts the cached trajectory tracks
-the recompute engine step for step.
+Runs the real sharded train step (parallel/steps.py: prop_cache slabs,
+gather+matmul, psum) at ~64k nodes — per-shard slab 64k x 8192 bf16 — and
+asserts the cached trajectory tracks the recompute engine step for step.
 
 The P slabs build through the exact scipy host builder
 (parallel/pcache.build_sharded_pcache_host; parity with the device builder
-is pinned in tests/test_parallel.py) because the bit-packed device build's
-CPU fallback would be O(n^2 * npad) dense FLOPs on this 2-core host. Step
-times are reported for completeness but are NOT perf claims — 8 virtual
-devices share 2 host cores; the perf story lives in BENCH/AMAZON_SCALE.
+is pinned in tests/test_parallel.py). Step times are reported for
+completeness but are not device numbers: 8 virtual devices share the host's
+cores.
 
-Run: python tools/sharded_midscale.py   (~10-25 min on the 2-core host)
+Run: python tools/sharded_midscale.py   (tens of minutes on a small host)
 """
 
 from __future__ import annotations
@@ -35,16 +31,16 @@ jax.config.update("jax_num_cpu_devices", 8)
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT = os.path.join(ROOT, "SHARDED_MIDSCALE.json")
+OUT = os.path.join(ROOT, ".cache", "sharded_midscale.json")
 
 N_USERS, N_ITEMS, AVG_DEG = 26000, 38000, 16
 D, LAYERS, BATCH, STEPS = 32, 3, 1024, 5
 
 
 def main():
-    from igcn_cf_tpu.core.mesh import TABLE_AXIS, make_mesh
-    from igcn_cf_tpu.data.synthetic import synthetic_interactions
-    from igcn_cf_tpu.parallel.steps import build_inmo_sharded_train, make_batch
+    from igcn_cf.core.mesh import TABLE_AXIS, make_mesh
+    from igcn_cf.data.synthetic import synthetic_interactions
+    from igcn_cf.parallel.steps import build_inmo_sharded_train, make_batch
 
     t0 = time.time()
     ds = synthetic_interactions(
@@ -62,10 +58,10 @@ def main():
         prop_cache="host",
     )
     build_cache_s = time.time() - t0
-    p4 = t_cache.buffers["pcache"]
-    slab_bytes = int(np.prod(p4.shape[1:])) * 2
+    pc = t_cache.buffers["pcache"]
+    slab_bytes = int(np.prod(pc.shape[1:])) * 2
     print(f"# sharded P built in {build_cache_s:.0f}s; per-shard slab "
-          f"{slab_bytes/2**30:.2f} GiB, stacked shape {p4.shape}", flush=True)
+          f"{slab_bytes/2**30:.2f} GiB, stacked shape {pc.shape}", flush=True)
 
     t0 = time.time()
     t_rec = build_inmo_sharded_train(
@@ -112,7 +108,7 @@ def main():
         "n_layers": LAYERS,
         "batch_size": BATCH,
         "per_shard_slab_bytes": slab_bytes,
-        "stacked_pcache_shape": list(p4.shape),
+        "stacked_pcache_shape": list(pc.shape),
         "build_cache_s": round(build_cache_s, 1),
         "build_recompute_s": round(build_rec_s, 1),
         "losses_cached_vs_recompute": losses,
@@ -123,12 +119,13 @@ def main():
         "note": (
             "End-to-end sharded propagation-cache training at a non-toy "
             "shape: real 2.1 GiB per-shard column slabs (multi-alignment-"
-            "block layout math), fused gather + psum step, trajectory "
+            "block layout math), gather+matmul + psum step, trajectory "
             "parity vs the recompute engine asserted step-by-step and on "
             "final embeddings. CPU-mesh wall times are functional evidence "
             "only."
         ),
     }
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"embedding_max_rel_dev": max_dev,
